@@ -1,6 +1,6 @@
 // Minimal .npy reader/writer (v1/v2) — native equivalent of the reference's
 // dual_npu/code_predictor_cpp/npy_reader.h (component #7 in SURVEY §2),
-// extended with write support and int dtypes for the TPU runtime's weight
+// extended with write support and int dtypes for this runtime's weight
 // and tensor IO. No external dependencies.
 #pragma once
 

@@ -1,6 +1,6 @@
-// libttsrt — native runtime for the TPU-native Qwen3-TTS framework.
+// libttsrt — native runtime for the Qwen3-TTS framework.
 //
-// TPU-native equivalents of the reference's host-native components
+// Counterparts of the reference's host-native components
 // (SURVEY §2): npy IO (#7 npy_reader.h), the socket server/framing plumbing
 // shared by the three reference servers (#2/#5/#9 recv_exact/send_exact
 // loops, e.g. code_predictor_server.cpp:91-109), WAV output

@@ -15,7 +15,7 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Qwen3-TTS (TPU-native)")
+    p = argparse.ArgumentParser(description="Qwen3-TTS")
     p.add_argument("text", nargs="?", default=None)
     p.add_argument("--text", dest="text_flag", default=None)
     p.add_argument("--language", default="russian")
@@ -34,15 +34,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="Tiny geometry (CPU smoke tests)")
     p.add_argument("--platform", default="default",
-                   choices=["default", "cpu", "tpu"],
-                   help="Force a JAX backend (the JAX_PLATFORMS env var is "
-                        "overridden by site config in some environments; "
-                        "this flag always works)")
+                   choices=["default", "cpu", "cuda"],
+                   help="Force a JAX backend: 'cuda' (NVIDIA GPU) or "
+                        "'cpu'; 'default' lets JAX pick")
     p.add_argument("--quantize", default=None,
                    choices=[None, "int8", "int8-cp"],
                    help="Weight-only int8 for talker+CP ('int8') or the "
-                        "code predictor only ('int8-cp', enables the "
-                        "VMEM-resident CP kernel; vocoder stays FP32)")
+                        "code predictor only ('int8-cp'); the vocoder "
+                        "stays FP32")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="Capture a jax.profiler trace (Perfetto) to DIR")
     p.add_argument("--long", action="store_true",

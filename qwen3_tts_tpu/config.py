@@ -1,4 +1,4 @@
-"""Model/geometry configuration for the TPU-native Qwen3-TTS framework.
+"""Model/geometry configuration for the Qwen3-TTS framework.
 
 The geometry reproduces the reference deployment of
 Qwen3-TTS-12Hz-0.6B-Base (see /root/reference):
@@ -39,7 +39,6 @@ class TalkerConfig:
     text_embed_dim: int = 2048
     codec_vocab_size: int = 3072
     max_seq_len: int = 512  # reference n_ctx=512 (llamacpp_talker_server.py:104)
-    attention_impl: str = "xla"  # "xla" | "pallas" fused decode attention
 
     @property
     def q_dim(self) -> int:
@@ -68,7 +67,6 @@ class CodePredictorConfig:
     group_vocab_size: int = 2048  # per-group codec vocab
     # seq len inside one CP call: 2 prefill + 14 decode = 16
     max_seq_len: int = 16
-    attention_impl: str = "xla"
 
     @property
     def q_dim(self) -> int:

@@ -14,7 +14,7 @@ Numerical contract (reference /root/reference):
 - sampling is plain top-k=50 at temperature 0.1
   (code_predictor_server.py:87-92).
 
-TPU-native: the 15-group recursion is a single ``lax.scan`` with the
+The 15-group recursion is a single ``lax.scan`` with the
 per-group embedding/head tables stacked into [15, 2048, hidden] tensors so
 the whole inner loop lives inside the outer decode program — zero host
 round-trips (the reference pays a socket hop per talker token here and
@@ -68,34 +68,6 @@ def _project_in(params: Params, x: jax.Array) -> jax.Array:
     return out.astype(x.dtype)
 
 
-def _fused_kernel_ok(params: Params, B: int,
-                     cfg: CodePredictorConfig) -> bool:
-    """The VMEM-resident Pallas path (ops/pallas/cp_decode.py) applies to
-    int8-quantized params, batch <= 8 (the kernel vectorizes over rows;
-    past 8 the scan path wins), single TPU chip, MXU-aligned geometry.
-    Kept separate from talker._fused_step_ok deliberately: the two gates
-    check different layouts (lm_heads QTensor vs fused-int8 stack),
-    different KV forms, and different batch bounds."""
-    import os
-
-    from qwen3_tts_tpu.ops.quant import QTensor
-
-    if os.environ.get("QWEN3_TTS_CP_KERNEL", "1") == "0":
-        return False
-    # single chip only: under a mesh the scan path runs with sharded int8
-    # matmuls (parallel/mesh.adapt_spec_to_params); the VMEM-resident
-    # kernel is not shard_map-aware
-    return (B <= 8
-            and jax.device_count() == 1
-            and isinstance(params.get("lm_heads"), QTensor)
-            and isinstance(params["layers"].get("q_proj"), QTensor)
-            and jax.default_backend() == "tpu"
-            and cfg.head_dim % 128 == 0
-            and cfg.hidden_size % 128 == 0
-            and cfg.group_vocab_size % 128 == 0
-            and cfg.max_seq_len % 8 == 0)
-
-
 def predict_codes(
     params: Params,
     hidden: jax.Array,        # (B, H) talker hidden (post final norm)
@@ -107,21 +79,11 @@ def predict_codes(
     """Predict groups 1..15 for each batch element. Returns (B, 15) int32.
 
     Mirrors CodePredictorServer.predict (code_predictor_server.py:94-140)
-    with the 14-step inner AR loop as a lax.scan — or, when the int8
-    VMEM-resident Pallas kernel applies (B<=8 on TPU), steps 1..14 run in
-    ONE pallas_call with the 5-layer weight stack resident in VMEM
-    (~1 ms/token vs ~5 ms for the scan; ops/pallas/cp_decode.py).
+    with the 14-step inner AR loop as a lax.scan.
 
     Randomness is PER ELEMENT: element i's draws depend only on key[i]
     (a (2,) key is broadcast), so outputs are invariant to batch size and
-    slot position for a fixed per-element key — WITHIN a path. The fused
-    kernel derives a per-element uint32 seed for its in-kernel hash PRNG
-    from keys[:, 1], so its draws differ from the scan path's
-    jax.random draws (same distribution — chi-squared-tested in
-    tests/test_cp_kernel.py — different stream). Crossing the kernel
-    gate (B > 8, QWEN3_TTS_CP_KERNEL=0, sharded params) therefore
-    changes sampled codes for the same key; greedy (temperature 0) is
-    bit-identical on both paths.
+    slot position for a fixed per-element key.
     """
     geo = tfm.geometry_of(cfg)
     B, H = hidden.shape
@@ -153,20 +115,6 @@ def predict_codes(
         lambda lg, kk: smp.topk_temperature_sample(
             lg, kk, scfg.cp_top_k, scfg.cp_temperature)
     )(logits0, keys[:, 0]).astype(jnp.int32)                # (B,)
-
-    if _fused_kernel_ok(params, B, cfg):
-        from qwen3_tts_tpu.ops.pallas.cp_decode import cp_decode_steps
-        cos, sin = tfm.rope_cos_sin(jnp.arange(S, dtype=jnp.int32),
-                                    cfg.head_dim, cfg.rope_theta)
-        seeds = jax.vmap(
-            lambda k: jax.random.bits(k, (), "uint32").astype(jnp.int32)
-        )(keys[:, 1])                                        # (B,)
-        toks14 = cp_decode_steps(
-            params, tok0, kv, cos, sin, seeds,
-            eps=cfg.rms_norm_eps, top_k=scfg.cp_top_k,
-            temperature=float(scfg.cp_temperature),
-            greedy=scfg.cp_temperature <= 0.0)       # (14, B)
-        return jnp.concatenate([tok0[:, None], toks14.T], axis=1)
 
     # --- steps 1..14: embed prev with codec_emb[step-1], decode pos step+1,
     #     sample from lm_head[step] ---

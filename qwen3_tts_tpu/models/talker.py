@@ -12,7 +12,7 @@ Reproduces the numerical contract of the reference talker server
 - the dual-stream prefix sums a text-stream and a codec-stream embedding
   at each position (llamacpp_talker_server.py:121-161).
 
-TPU-native: the prefix is built fully on device as a fixed-shape padded
+The prefix is built fully on device as a fixed-shape padded
 tensor (text length is padded to a bucket; the true length rides along as
 a scalar), so prefill is a single jitted program per bucket size.
 """
@@ -272,7 +272,7 @@ def prefill_chunked(
     cfg: TalkerConfig,
     chunk: int = 128,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Block-wise prefill in fixed `chunk`-token windows (the TPU analog of
+    """Block-wise prefill in fixed `chunk`-token windows (the counterpart of
     the reference's 128-token chunked NPU prefill, LLM_Qwen3TTS.hpp:452-548).
     Numerically identical to the one-shot prefill (causal masking makes
     window order irrelevant); attention memory is O(chunk * S) instead of
@@ -318,30 +318,15 @@ def decode_step(
     kv_cache: jax.Array,
     cfg: TalkerConfig,
     mesh=None,
-    rope_table=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """One talker decode step on a feedback embedding; returns final-norm
     hidden (B, H) and the updated cache. Mirrors
     llm.get_hidden(feedback, keep_history=1). ``mesh`` routes the paged
-    path's write+attention through shard_map (see tfm.paged_decode_step).
-    ``rope_table``: optional precomputed (cos, sin) (S, Dh) tables for the
-    fused-kernel path — pass from loop callers so the 65k-entry trig
-    table isn't rebuilt every step (run_steps hoists it)."""
+    path's write+attention through shard_map (see tfm.paged_decode_step)."""
     geo = tfm.geometry_of(cfg)
     if isinstance(kv_cache, tfm.PagedKV):
         h, kv = tfm.paged_decode_step(params["layers"], feedback, pos,
                                       kv_cache, geo, mesh=mesh)
-    elif _fused_step_ok(params, feedback.shape[0], kv_cache, cfg):
-        from qwen3_tts_tpu.ops.pallas.talker_step import (
-            talker_decode_step_fused)
-        if rope_table is None:
-            S = kv_cache.shape[3]
-            rope_table = tfm.rope_cos_sin(jnp.arange(S, dtype=jnp.int32),
-                                          cfg.head_dim, cfg.rope_theta)
-        h, kv = talker_decode_step_fused(params["layers"], feedback, pos,
-                                         kv_cache, rope_table[0],
-                                         rope_table[1],
-                                         eps=cfg.rms_norm_eps)
     elif "layers_list" in params:
         h, kv = tfm.decode_step_unrolled(params["layers_list"], feedback,
                                          pos, kv_cache, geo)
@@ -350,30 +335,3 @@ def decode_step(
                                 geo)
     h = tfm.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return h, kv
-
-
-def _fused_step_ok(params: Params, B: int, kv_cache, cfg) -> bool:
-    """The single-program decode-step kernel
-    (ops/pallas/talker_step.py) applies to the fused-int8 layout on a
-    single TPU chip, dense KV, batch 1, MXU-aligned geometry.
-
-    B == 1 only: the kernel unrolls its attention per batch row, and the
-    Mosaic compile time grows superlinearly with the unroll (B=8 exceeds
-    10 minutes); B=1 is the single-request CLI/engine hot path the kernel
-    exists for — the batched tier runs bf16 where weight streaming is
-    amortized across rows anyway (docs/BENCHMARKS.md)."""
-    import os
-
-    from qwen3_tts_tpu.ops.quant import QTensor
-
-    if os.environ.get("QWEN3_TTS_TALKER_KERNEL", "1") == "0":
-        return False
-    layers = params.get("layers", {})
-    return (B == 1
-            and jax.device_count() == 1
-            and jax.default_backend() == "tpu"
-            and isinstance(layers.get("qkv_proj"), QTensor)
-            and isinstance(layers.get("gateup_proj"), QTensor)
-            and cfg.head_dim % 128 == 0
-            and cfg.hidden_size % 128 == 0
-            and kv_cache.shape[3] % 8 == 0)

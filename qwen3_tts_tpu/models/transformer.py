@@ -1,10 +1,10 @@
 """Pure-function Qwen3 transformer blocks (shared by talker and code predictor).
 
-TPU-native design notes
------------------------
+Design notes
+------------
 - Parameters are plain pytrees (dicts of jnp arrays) with all per-layer
   tensors *stacked along a leading layer axis* so the layer loop is a
-  single ``lax.scan`` — one trace, one compile, MXU-friendly.
+  single ``lax.scan`` — one trace, one compile.
 - Everything is batched: shapes carry a leading batch dim ``B`` so the
   same code serves batch=1 CLI synthesis and continuous-batching serving.
 - The KV cache is a preallocated, fixed-shape array updated with
@@ -118,7 +118,6 @@ class TransformerGeometry:
     head_dim: int
     rms_norm_eps: float
     rope_theta: float
-    attn_impl: str = "xla"  # "xla" | "pallas" (fused decode attention)
 
     @property
     def q_groups(self) -> int:
@@ -128,7 +127,7 @@ class TransformerGeometry:
     def attention_only(cls, num_heads: int, num_kv_heads: int,
                        head_dim: int) -> "TransformerGeometry":
         """Geometry for callers that only run gqa_attention (e.g. the
-        paged-attention XLA fallback): the attention fields are real, the
+        paged decode attention): the attention fields are real, the
         stack fields are deliberately impossible sentinels so any future
         gqa_attention dependence on them fails loudly instead of reading
         a plausible dummy (review finding)."""
@@ -145,7 +144,6 @@ def geometry_of(cfg) -> TransformerGeometry:
         intermediate_size=cfg.intermediate_size, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
-        attn_impl=getattr(cfg, "attention_impl", "xla"),
     )
 
 
@@ -357,8 +355,8 @@ def forward_prefill_unrolled(
     kv_cache: jax.Array,         # (L, 2, B, S, Hkv, Dh)
 ) -> Tuple[jax.Array, jax.Array]:
     """forward_prefill over per-layer weight ARRAYS instead of a scanned
-    stack: lax.scan materializes an HBM copy of each layer's weights
-    before the Pallas matmuls read them (the same copy traffic that
+    stack: lax.scan can materialize a copy of each layer's weights
+    before the matmuls read them (the same copy traffic that
     motivated decode_step_unrolled) — for short prefills (the code
     predictor's 2-token prefill runs once per talker token) the unrolled
     form reads each weight exactly once."""
@@ -395,7 +393,7 @@ def causal_mask(batch: int, seq_len: int, lengths: jax.Array) -> jax.Array:
 
 # ---------------------------------------------------------------------------
 # Windowed forward: C tokens at a global offset against the KV cache.
-# The block-wise prefill primitive (the TPU analog of the reference's
+# The block-wise prefill primitive (the counterpart of the reference's
 # chunked 128-token NPU prefill with incrementally-built causal masks,
 # LLM_Qwen3TTS.hpp:452-548): attention cost O(C*S) per window instead of
 # O(P^2), and the same path serves speculative/multi-token decode later.
@@ -454,12 +452,11 @@ def decode_step_unrolled(
 ) -> Tuple[jax.Array, jax.Array]:
     """decode_step with a Python-unrolled layer loop over per-layer weight
     arrays. Identical math to decode_step; exists because lax.scan over a
-    stacked weight pytree lowers the per-iteration slice to a
-    dynamic-slice that XLA MATERIALIZES in HBM before each Pallas matmul —
-    ~0.7 ms/token of pure copy traffic at the talker's size (measured in a
-    device trace; docs/BENCHMARKS.md). With per-layer arrays the kernels
-    read the weights directly. Costs a bigger HLO (L x the body), which
-    only the hot B=1 decode path pays."""
+    stacked weight pytree can lower the per-iteration slice to a
+    dynamic-slice that XLA materializes in device memory before each
+    matmul — pure copy traffic. With per-layer arrays the matmuls read
+    the weights directly. Costs a bigger HLO (L x the body), which only
+    the int8 engine decode path pays."""
     B = x.shape[0]
     S = kv_cache.shape[3]
     cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
@@ -478,12 +475,7 @@ def decode_step_unrolled(
         # re-stack: the slice reads below fuse into the attention ops)
         kv_cache = kv_cache.at[l, :, b_idx, pos].set(new_kv)
         k_all, v_all = kv_cache[l, 0], kv_cache[l, 1]
-        if geo.attn_impl == "pallas":
-            from qwen3_tts_tpu.ops.pallas.decode_attention import (
-                decode_attention_pallas)
-            attn1 = decode_attention_pallas(q[:, 0], k_all, v_all, pos)
-        else:
-            attn1 = gqa_attention(q, k_all, v_all, mask, geo)[:, 0]
+        attn1 = gqa_attention(q, k_all, v_all, mask, geo)[:, 0]
         attn = quant.matmul(attn1, layer["o_proj"]).astype(h.dtype)
         h = h + attn
         hn = rms_norm(h, layer["post_ln"], geo.rms_norm_eps)
@@ -491,6 +483,37 @@ def decode_step_unrolled(
                            layer.get("up_proj"), layer["down_proj"],
                            gateup_w=layer.get("gateup_proj"))
     return h, kv_cache
+
+
+def paged_gather_kv(pool: jax.Array, table: jax.Array) -> jax.Array:
+    """Materialize each slot's logical KV view.
+
+    pool: (2, P, psz, Hkv, Dh); table: (B, MAXP) int32 (0-filled beyond
+    the allocated pages — masked by position downstream).
+    Returns (2, B, MAXP*psz, Hkv, Dh)."""
+    g = pool[:, table]                # (2, B, MAXP, psz, Hkv, Dh)
+    two, B, MAXP, psz, Hkv, Dh = g.shape
+    return g.reshape(two, B, MAXP * psz, Hkv, Dh)
+
+
+def paged_decode_attention(
+    q: jax.Array,        # (B, Hq, Dh)
+    pool: jax.Array,     # (2, P, psz, Hkv, Dh) — one layer's K/V pool
+    table: jax.Array,    # (B, MAXP) int32
+    pos: jax.Array,      # (B,) int32 — attend to rows [0 .. pos]
+) -> jax.Array:
+    """One query token per slot attends over its pages: gather the
+    slot's logical KV view, then plain GQA attention masked by position.
+    Returns (B, Hq*Dh) in q.dtype."""
+    _, Hq, Dh = q.shape
+    kv = paged_gather_kv(pool, table)         # (2, B, S_log, Hkv, Dh)
+    S = kv.shape[2]
+    mask = (jnp.arange(S)[None, :] <= pos[:, None])[:, None, :]  # (B,1,S)
+    geo = TransformerGeometry.attention_only(
+        num_heads=Hq, num_kv_heads=pool.shape[3], head_dim=Dh)
+    out = gqa_attention(q[:, None], kv[0], kv[1], mask, geo)[:, 0]
+    return out.astype(q.dtype)
+
 
 def _paged_write_attend_local(q1: jax.Array, new_kv: jax.Array,
                               pool_l: jax.Array, table: jax.Array,
@@ -510,9 +533,6 @@ def _paged_write_attend_local(q1: jax.Array, new_kv: jax.Array,
     above-range ids to live page p_local-1, where a buggy allocation
     would silently corrupt another slot's KV instead of the sink
     (review finding)."""
-    from qwen3_tts_tpu.ops.pallas.paged_attention import (
-        paged_decode_attention)
-
     dp_idx = jax.lax.axis_index("dp")
     local = table - dp_idx * p_local
     ltable = jnp.where((local >= 0) & (local < p_local), local, 0)
@@ -533,9 +553,8 @@ def paged_decode_step(
     mesh=None,
 ) -> Tuple[jax.Array, PagedKV]:
     """decode_step against the block-paged cache: K/V land in
-    ``table[b, pos//psz]`` at row ``pos%psz``; attention runs over the
-    slot's pages (Pallas scalar-prefetch kernel on TPU,
-    ops/pallas/paged_attention.py; XLA gather elsewhere). Returns
+    ``table[b, pos//psz]`` at row ``pos%psz``; attention gathers the
+    slot's pages into a logical view (``paged_decode_attention``). Returns
     (hidden (B, H), updated PagedKV).
 
     ``mesh`` (optional dp x tp jax.sharding.Mesh): the write + attention
@@ -545,9 +564,6 @@ def paged_decode_step(
     materialize cross-shard collectives of the whole logical KV per step.
     Everything around it (qkv/o_proj/mlp) stays GSPMD like the dense mesh
     path (parallel/mesh.py)."""
-    from qwen3_tts_tpu.ops.pallas.paged_attention import (
-        paged_decode_attention)
-
     B = x.shape[0]
     psz = paged.page_size
     cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
@@ -620,12 +636,7 @@ def decode_step(
         kv_l = kv_l.at[:, b_idx, pos].set(new_kv)
         k_all = kv_l[0]  # (B, S, Hkv, Dh)
         v_all = kv_l[1]
-        if geo.attn_impl == "pallas":
-            from qwen3_tts_tpu.ops.pallas.decode_attention import (
-                decode_attention_pallas)
-            attn1 = decode_attention_pallas(q[:, 0], k_all, v_all, pos)
-        else:
-            attn1 = gqa_attention(q, k_all, v_all, mask, geo)[:, 0]
+        attn1 = gqa_attention(q, k_all, v_all, mask, geo)[:, 0]
         attn = quant.matmul(attn1, layer["o_proj"]).astype(h.dtype)
         h = h + attn
         hn = rms_norm(h, layer["post_ln"], geo.rms_norm_eps)

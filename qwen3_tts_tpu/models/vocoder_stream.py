@@ -9,10 +9,9 @@ sample-exact against ``vocoder.decode_raw`` up to GEMM reassociation
 (float <= 1e-6 absolute; wire int16 NEVER more than +-1 LSB off — XLA
 reassociates dot reductions across operand shapes, so attention over
 [KV-window + chunk] keys differs from the full-sequence forward at
-~1e-9 in the final audio; the conv path alone is bitwise. The differing
-FRACTION depends on the backend's f32 matmul precision: < 0.01% of
-samples on CPU (true f32), ~3.6% on TPU (default f32 matmul precision
-is bf16 — measured at real geometry, 2026-08); both are
+~1e-9 in the final audio; the conv path alone is bitwise on the CPU.
+Every matmul and conv runs at full float32 precision
+(``vocoder.fp32_precision``); < 0.01% of samples differ on the CPU,
 sub-quantization noise. Contract asserted in
 tests/test_vocoder_stream.py):
 
@@ -191,6 +190,7 @@ def _pre_transformer_stream(p: Params, x: jax.Array, kv: jax.Array,
 # The streaming step
 # ---------------------------------------------------------------------------
 
+@voc.fp32_precision
 def stream_step(params: Params, state: State, codes: jax.Array,
                 cfg: VocoderConfig, *,
                 primed: bool) -> Tuple[jax.Array, State]:

@@ -1,11 +1,13 @@
 """Device mesh + sharding rules for multi-chip serving.
 
 The reference is a single-device, single-request system (SURVEY §2,
-parallelism table). The TPU build adds first-class data/tensor parallelism
+parallelism table). This build adds first-class data/tensor parallelism
 for the daemon-serving config: requests are batch-sharded over ``dp`` and
-the talker/CP weights are Megatron-style tensor-sharded over ``tp`` so the
-per-step collectives (an all-reduce after o_proj and down_proj, inserted
-by XLA from the shardings) ride the ICI.
+the talker/CP weights are Megatron-style tensor-sharded over ``tp``; the
+per-step collectives (an all-reduce after o_proj and down_proj) are
+inserted by XLA from the shardings and run over the cards' links. The
+mesh is a plain dp x tp grid: every card reaches every other at the
+same rate, so nothing in it follows a physical topology.
 
 Everything is expressed as ``PartitionSpec`` trees consumed by ``jax.jit``
 ``in_shardings`` — no hand-written collectives; GSPMD propagates.
@@ -105,10 +107,9 @@ def adapt_spec_to_params(spec, params):
 
     Covers the non-fused int8 layouts (quantize_code_predictor, and
     quantize_layer_stack(fuse=False)). The FUSED talker layout
-    (qkv/gateup concat + unstacked layers_list) stays single-chip by
-    design: at serving batch sizes bf16 is measured faster than int8
-    (17.7 vs 8.1 audio-s/s at batch 4, docs/BENCHMARKS.md), so the mesh
-    tier serves bf16 talker + optional int8 CP."""
+    (qkv/gateup concat + unstacked layers_list) stays single-device:
+    batching amortizes the weight bytes int8 saves, so the mesh tier
+    serves bf16 talker + optional int8 CP."""
     from qwen3_tts_tpu.ops.quant import QTensor
 
     if isinstance(params, QTensor):

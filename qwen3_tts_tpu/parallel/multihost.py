@@ -1,9 +1,9 @@
 """Multi-host serving topology (DCN tier).
 
 The reference is single-host by construction ("dual_npu" = two NPUs on
-one board; SURVEY §2 distributed-comm row). The TPU build's cross-host
+one board; SURVEY §2 distributed-comm row). This build's cross-host
 story, per the survey's design stance: tensor parallelism NEVER crosses a
-host (tp collectives must ride ICI between a host's local chips), data
+host (tp collectives must ride the links between a host's local cards), data
 parallelism MAY span hosts (per-step dp communication is nil in serving —
 slots are independent — so DCN only carries admission/harvest traffic).
 
@@ -86,7 +86,7 @@ def barrier(name: str, timeout_s: float = 900.0) -> None:
     Use this to fence phases whose duration varies wildly per process
     (cold XLA compiles run minutes and are unsynchronized): a device
     collective (``multihost_utils.sync_global_devices``) would itself
-    sit in a gloo/ICI collective whose transport timeout the skew can
+    sit in a gloo/NCCL collective whose transport timeout the skew can
     blow, while the coordination-service barrier waits the full
     ``timeout_s`` regardless of transport. No-op single-process."""
     from jax._src import distributed as _dist
@@ -116,7 +116,7 @@ def make_serving_mesh(tp: int,
     Devices are grouped by ``device.process_index`` and laid out
     host-major: with H hosts of D local devices each, the mesh is
     ``(H * D // tp, tp)`` and rows [h*D//tp, (h+1)*D//tp) belong to host
-    h — tp collectives ride ICI, the dp axis is the only one that can
+    h — tp collectives ride intra-host links, the dp axis is the only one that can
     touch DCN. ``dp`` (optional) caps the dp extent (uses the first
     dp*tp devices in host-major order).
     """

@@ -35,12 +35,14 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _LIB_TRIED = True
     so = os.path.join(_NATIVE_DIR, "libttsrt.so")
-    if not os.path.exists(so):
-        try:  # build on demand (g++ is a baked-in dependency)
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    # make first, every time: a no-op when the library is up to date, and
+    # a rebuild from the tracked sources when a stale copy came with the
+    # tree; without a working toolchain the pure-Python paths serve
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(so)
     except OSError:

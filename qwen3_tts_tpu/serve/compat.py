@@ -140,8 +140,8 @@ class TalkerCompatServer(_SocketServer):
         self._prefill = jax.jit(prefill_fn)
         # donate the KV cache: without it XLA preserves the input buffer,
         # copying the whole per-request cache every decode step (review
-        # finding); gated to TPU — CPU ignores donation with a warning
-        donate = (3,) if jax.default_backend() == "tpu" else ()
+        # finding); not on CPU, which ignores donation with a warning
+        donate = (3,) if jax.default_backend() != "cpu" else ()
         self._step = jax.jit(step_fn, donate_argnums=donate)
         self._sample = jax.jit(sample_fn)
 

@@ -158,7 +158,7 @@ class TTSDaemon:
     - batched mode (``batcher`` given): requests from concurrent
       connections are admitted into the continuous-batching scheduler
       (serve/batching.py) and decode together — the multi-request
-      serving tier (BASELINE.json config #5). Connections are handled on
+      serving tier. Connections are handled on
       a thread each so requests genuinely overlap.
     """
 
@@ -820,31 +820,27 @@ class DaemonClient:
             c.close()
 
 
-def main(argv=None) -> int:
+def build_parser():
     import argparse
 
-    p = argparse.ArgumentParser(description="Qwen3-TTS TPU daemon")
+    p = argparse.ArgumentParser(description="Qwen3-TTS daemon")
     p.add_argument("--socket", default=DEFAULT_SOCKET)
     p.add_argument("--model_dir", default=None)
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--platform", default="default",
-                   choices=["default", "cpu", "tpu"])
+                   choices=["default", "cpu", "cuda"])
     p.add_argument("--python_loop", action="store_true",
                    help="Use the pure-Python accept loop")
     p.add_argument("--batch", type=int, default=0,
                    help="Enable continuous batching with N slots "
-                        "(concurrent requests decode together). One-chip "
-                        "throughput peaks at 32 (the measured knee: 48.9 "
-                        "audio-s/s; 64 is slower AND triples first-token "
-                        "latency); use 8-16 when admission latency "
-                        "matters (docs/BENCHMARKS.md 'serving knee')")
+                        "(concurrent requests decode together); larger "
+                        "batches trade admission latency for throughput")
     p.add_argument("--decode_chunk", type=int, default=32,
                    help="Batched-mode decode steps per scheduler "
-                        "iteration: larger = more throughput (48: 17.7 "
-                        "audio-s/s at batch 4), smaller = faster "
-                        "admission of new requests")
+                        "iteration: larger = more throughput, smaller = "
+                        "faster admission of new requests")
     p.add_argument("--paged", action="store_true",
                    help="Batched mode with a block-paged KV pool: per-slot "
                         "page tables grown on demand, so generation length "
@@ -855,11 +851,9 @@ def main(argv=None) -> int:
                    help="Batched-mode chunk pipelining: 2 (default) "
                         "dispatches the next decode chunk before harvesting "
                         "the previous one, hiding the per-chunk status "
-                        "round trip behind device compute. Measured "
-                        "+22%% throughput at ~zero p50 latency cost "
-                        "(first-frame p95 +~1 chunk; "
-                        "docs/BENCHMARKS.md depth A/B); pass 1 for "
-                        "strictly earliest frame surfacing")
+                        "round trip behind device compute (frames surface "
+                        "up to one chunk later); pass 1 for strictly "
+                        "earliest frame surfacing")
     p.add_argument("--tp", type=int, default=0, metavar="N",
                    help="Batched-mode tensor parallelism: run the batcher "
                         "over a dp x tp device mesh (GSPMD specs from "
@@ -884,8 +878,8 @@ def main(argv=None) -> int:
                         "one batch-1 prefill KV on device")
     p.add_argument("--quantize", default=None,
                    choices=[None, "int8", "int8-cp"],
-                   help="Weight-only int8 (see cli.py); the fastest "
-                        "single-request config on TPU is 'int8'")
+                   help="Weight-only int8 for the single-request "
+                        "engine tier (see cli.py)")
     p.add_argument("--voices", default=None, metavar="DIR",
                    help="Voice registry root: every subdirectory holding "
                         "ref_codec_tokens.npy (a prompt_dir from "
@@ -897,6 +891,11 @@ def main(argv=None) -> int:
                         " POST /v1/synthesize -> WAV or chunked frame "
                         "stream, GET /v1/stats, /health) — same handler, "
                         "second transport")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
 
     if args.platform != "default":
@@ -915,12 +914,10 @@ def main(argv=None) -> int:
     dtype = jnp.bfloat16 if args.dtype == "bfloat16" else jnp.float32
     quantize = args.quantize
     if quantize and args.batch > 0:
-        # measured on v5e (tools/dev/bench_serving.py): at batch 4 the
-        # bf16 scan path hits 17.7 audio-s/s while talker-int8 drops to
-        # 8.1 — batching amortizes weight streaming, so int8 only adds
-        # overhead. Ignore the flag rather than serve slower.
-        print("--quantize ignored with --batch > 0 (bf16 is faster "
-              "batched; docs/BENCHMARKS.md)", flush=True)
+        # batching amortizes the weight bytes int8 saves; the batched
+        # tier serves a bf16 talker with an int8 code predictor
+        print("--quantize ignored with --batch > 0 (the batched tier "
+              "serves a bf16 talker)", flush=True)
         quantize = None
     mesh = None
     if args.tp > 0 or args.dp > 0:

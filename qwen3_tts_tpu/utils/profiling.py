@@ -1,6 +1,6 @@
 """Per-stage wall-clock timing + RTF reporting.
 
-TPU equivalent of the reference's printf timing (SURVEY §5): the same
+Counterpart of the reference's printf timing (SURVEY §5): the same
 simple per-stage counters, plus an optional jax.profiler trace hook for
 Perfetto when deep profiling is needed.
 """

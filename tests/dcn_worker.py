@@ -27,17 +27,6 @@ from qwen3_tts_tpu.parallel import multihost as mh
 
 
 def main() -> None:
-    import os
-
-    # NO persistent compile cache by default (the XLA:CPU AOT
-    # deserialization instability — tests/conftest.py docstring);
-    # QWEN3_TTS_TEST_CACHE_DIR opts into one for deliberate experiments
-    cache = os.environ.get("QWEN3_TTS_TEST_CACHE_DIR")
-    if cache:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          0.0)
-
     assert mh.init_distributed(), "QWEN3_TTS_* env must trigger init"
     pid = jax.process_index()
     assert jax.process_count() == 2 and len(jax.devices()) == 8

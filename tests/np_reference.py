@@ -1,5 +1,5 @@
 """Independent NumPy golden-reference implementation of the numerical
-contracts in SURVEY.md §0 — used to validate the JAX/TPU implementation.
+contracts in SURVEY.md §0 — used to validate the JAX implementation.
 
 Deliberately written the "obvious" way (full recompute, python loops, no
 KV cache) so that agreement with the fused JAX programs is meaningful.

@@ -146,7 +146,7 @@ def test_background_thread(batcher):
 
 
 def test_batcher_on_mesh():
-    """Continuous batching on a dp x tp mesh (the v5e-4 serving config,
+    """Continuous batching on a dp x tp mesh (the 4-card serving config,
     virtualized on the 8-CPU-device mesh)."""
     import dataclasses
     import jax

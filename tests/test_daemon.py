@@ -465,7 +465,7 @@ def test_daemon_main_batched_warmup_and_sigterm(tmp_path):
 def test_daemon_main_mesh_flags(tmp_path):
     """`qwen3-tts-daemon --batch 4 --tp 2 --dp 2`: the serving entry
     point itself runs the batched tier over a dp x tp mesh (SURVEY §7.6
-    'continuous batching across a v5e-4 mesh' as a user-facing flag, not
+    'continuous batching across a 4-device mesh' as a user-facing flag, not
     a library-only capability). The daemon must report the mesh, serve a
     request, and drain on SIGTERM."""
     import signal

@@ -97,9 +97,7 @@ def test_streaming_phase2_tail_windows():
     np.testing.assert_array_equal(a.codes, b.codes)
     assert len(b.audio_int16) == b.n_tokens * SAMPLES_PER_TOKEN
     # DEFAULT engine streaming is the full-left-context window path:
-    # BIT-exact vs the non-streaming decode (conv-exact, r2/r3; kept as
-    # the default by the r5 A/B — it measured 6% faster than the
-    # incremental path at engine scale, docs/BENCHMARKS.md)
+    # BIT-exact vs the non-streaming decode on the CPU (conv-exact)
     np.testing.assert_array_equal(a.audio_int16, b.audio_int16)
     # the opt-in incremental path (QWEN3_TTS_ENGINE_STREAM=incremental,
     # the batched tier's stream — r5, VERDICT r4 #8) equals the decode

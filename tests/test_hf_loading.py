@@ -299,7 +299,7 @@ def test_list_keys_and_schema_check(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Geometry auto-detection (header-only): the TPU-native equivalent of the
+# Geometry auto-detection (header-only): the counterpart of the
 # reference's shape-driven param detection (LLM_Qwen3TTS.hpp:307-323)
 # ---------------------------------------------------------------------------
 

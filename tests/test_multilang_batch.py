@@ -1,4 +1,4 @@
-"""Multi-language batched synthesis (BASELINE.json config #3): all 7
+"""Multi-language batched synthesis: all 7
 supported languages in one batched fused decode."""
 
 import numpy as np

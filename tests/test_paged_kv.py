@@ -1,7 +1,7 @@
-"""Block-paged KV cache tests (VERDICT round-1 item 10 / SURVEY §7 hard
-part 4): paged decode parity vs the dense cache, the Pallas kernel in
-interpret mode vs the XLA oracle, and the paged continuous batcher serving
-a generation LONGER than the dense allocation allows."""
+"""Block-paged KV cache tests (SURVEY §7 hard part 4): paged decode
+parity vs the dense cache, paged attention vs dense attention at page
+boundaries, and the paged continuous batcher serving a generation LONGER
+than the dense allocation allows."""
 
 import dataclasses
 
@@ -13,7 +13,6 @@ import pytest
 from qwen3_tts_tpu import config as C
 from qwen3_tts_tpu.config import tiny_tts_config
 from qwen3_tts_tpu.models import transformer as tfm
-from qwen3_tts_tpu.ops.pallas import paged_attention as pattn
 
 GEO = tfm.TransformerGeometry(
     num_layers=2, hidden_size=64, intermediate_size=128,
@@ -69,31 +68,52 @@ def test_paged_decode_step_matches_dense():
             np.asarray(want_kv[:, :, b, p]), rtol=1e-6, atol=1e-7)
 
 
-def test_paged_kernel_interpret_matches_oracle():
-    """The Pallas paged-attention kernel (interpret mode on CPU) must match
-    the XLA gather fallback bit-for-bit-ish."""
+def test_gqa_attention_position_bound():
+    """Decode attention reads rows [0 .. pos] only: whatever sits past a
+    slot's position (stale rows of a recycled slot, unallocated pages)
+    cannot change its output."""
     rng = np.random.default_rng(3)
-    B, Hq, Hkv, Dh, P, psz, MAXP = 2, 8, 4, 16, 16, 8, 4
-    q = jnp.asarray(rng.normal(size=(B, Hq, Dh)).astype(np.float32)) * 0.5
-    pool = jnp.asarray(rng.normal(
-        size=(2, P, psz, Hkv, Dh)).astype(np.float32)) * 0.5
-    table = jnp.asarray(rng.permutation(np.arange(P))[:B * MAXP]
-                        .reshape(B, MAXP).astype(np.int32))
-    pos = jnp.array([5, 23], jnp.int32)
+    B, Hq, Hkv, Dh, S = 2, 8, 4, 16, 24
+    geo = tfm.TransformerGeometry.attention_only(Hq, Hkv, Dh)
+    q = jnp.asarray(rng.normal(size=(B, 1, Hq, Dh)), jnp.float32)
+    k = rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, Dh)).astype(np.float32)
+    pos = np.array([5, 17], np.int32)
+    mask = jnp.asarray(np.arange(S)[None, :] <= pos[:, None])[:, None, :]
+    want = tfm.gqa_attention(q, jnp.asarray(k), jnp.asarray(v), mask, geo)
+    for b in range(B):
+        k[b, pos[b] + 1:] = 1e4
+        v[b, pos[b] + 1:] = -1e4
+    got = tfm.gqa_attention(q, jnp.asarray(k), jnp.asarray(v), mask, geo)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
-    want = pattn.paged_gather_kv(pool, table)
-    S = want.shape[2]
-    mask = (jnp.arange(S)[None, :] <= pos[:, None])[:, None, :]
-    geo = tfm.TransformerGeometry(
-        num_layers=1, hidden_size=Hq * Dh, intermediate_size=1,
-        num_heads=Hq, num_kv_heads=Hkv, head_dim=Dh,
-        rms_norm_eps=1e-6, rope_theta=1e6)
-    oracle = tfm.gqa_attention(q[:, None], want[0], want[1], mask, geo)[:, 0]
 
-    got = pattn.paged_decode_attention_pallas(
-        q, pool[0], pool[1], table, pos, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(oracle),
-                               rtol=2e-5, atol=2e-6)
+@pytest.mark.parametrize("psz", [4, 8, 16])
+def test_paged_attention_matches_dense_at_page_boundaries(psz):
+    """paged_decode_attention over a scrambled page table equals dense
+    attention over the same logical rows, for positions on each side of
+    a page boundary (the last row of a page, the first of the next)."""
+    rng = np.random.default_rng(psz)
+    Hq, Hkv, Dh, MAXP = 8, 4, 16, 4
+    S = MAXP * psz
+    pos = np.array([psz - 1, psz, 2 * psz - 1, 2 * psz, S - 1], np.int32)
+    B = len(pos)
+    n_pages = 1 + B * MAXP
+    dense = rng.normal(size=(2, B, S, Hkv, Dh)).astype(np.float32)
+    table = (1 + rng.permutation(B * MAXP)).reshape(B, MAXP).astype(np.int32)
+    pool = np.zeros((2, n_pages, psz, Hkv, Dh), np.float32)
+    for b in range(B):
+        for j in range(MAXP):
+            pool[:, table[b, j]] = dense[:, b, j * psz:(j + 1) * psz]
+    q = jnp.asarray(rng.normal(size=(B, Hq, Dh)), jnp.float32)
+    geo = tfm.TransformerGeometry.attention_only(Hq, Hkv, Dh)
+    mask = jnp.asarray(np.arange(S)[None, :] <= pos[:, None])[:, None, :]
+    want = tfm.gqa_attention(q[:, None], jnp.asarray(dense[0]),
+                             jnp.asarray(dense[1]), mask, geo)[:, 0]
+    got = tfm.paged_decode_attention(q, jnp.asarray(pool),
+                                     jnp.asarray(table), jnp.asarray(pos))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
 
 
 def _paged_batcher(cfg, params, **kw):

@@ -10,7 +10,7 @@ asserted here are the metrics that stay meaningful:
 
 - teacher-forced hidden drift (tf_cos_min): int8 talker matmul error
   accumulated over a forced-identical context — the direct numeric
-  regression signal for ops/quant + the Pallas dequant path.
+  regression signal for ops/quant's int8 matmul.
 - int8-cp invariants: with the talker left bf16, the teacher-forced
   hidden trajectory and code_0 choices must be IDENTICAL to bf16 —
   any miss means quantize-cp leaked into the talker path.

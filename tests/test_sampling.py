@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from qwen3_tts_tpu.config import CODEC_EOS_ID, SamplingConfig
 from qwen3_tts_tpu.ops import sampling as smp
@@ -229,3 +230,59 @@ def test_batch_keys_accepts_typed_prng_keys():
     legacy = smp.batch_keys(jax.random.PRNGKey(7), 3)
     typed = smp.batch_keys(jax.random.key(7), 3)
     np.testing.assert_array_equal(np.asarray(typed), np.asarray(legacy))
+
+
+def _cp_topk_temp_probs(logits, top_k, temperature):
+    """code_predictor_server.py:87-92 as an analytic distribution:
+    softmax over the top-k logits / T."""
+    order = np.argsort(logits)[::-1][:top_k]
+    z = logits[order] / temperature
+    z -= z.max()
+    p = np.exp(z) / np.exp(z).sum()
+    probs = np.zeros(len(logits))
+    probs[order] = p
+    return probs
+
+
+@pytest.mark.parametrize("temperature,spread", [(0.8, 1.0), (0.5, 0.3)])
+def test_cp_sampler_distribution_chi2(temperature, spread):
+    """χ² of 20k draws from topk_temperature_sample against the analytic
+    top-k/temperature distribution at temperatures above the CP's 0.1,
+    where the kept mass spreads over many codes: a wrong temperature
+    scale or a biased draw makes the statistic explode."""
+    V, N = 2048, 20000
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal(V) * spread).astype(np.float32)
+    probs = _cp_topk_temp_probs(logits, 50, temperature)
+    keys = jax.random.split(jax.random.PRNGKey(2), N)
+    draws = np.asarray(jax.jit(jax.vmap(
+        lambda k: smp.topk_temperature_sample(
+            jnp.asarray(logits), k, 50, temperature)))(keys))
+    assert probs[draws].min() > 0, "draw outside the top-k support"
+    stat, crit = _chi2_gof(draws, probs)
+    assert stat < crit, f"chi2 {stat:.1f} >= {crit:.1f}: biased sampler"
+
+
+def test_cp_group_draws_are_decorrelated():
+    """predict_codes draws group g with the g-th split of an element's
+    key: draws of two successive groups from one key must be independent
+    — the joint frequency over (group 1, group 2) factorises."""
+    V, N = 256, 20000
+    rng = np.random.default_rng(1)
+    logits = (rng.standard_normal(V) * 0.3).astype(np.float32)
+    probs = _cp_topk_temp_probs(logits, 8, 0.5)
+    kept = np.flatnonzero(probs)
+    remap = -np.ones(V, np.int64)
+    remap[kept] = np.arange(len(kept))
+
+    def draw_pair(key):
+        ks = jax.random.split(key, 15)
+        return jnp.stack([smp.topk_temperature_sample(
+            jnp.asarray(logits), ks[g], 8, 0.5) for g in (1, 2)])
+
+    keys = jax.random.split(jax.random.PRNGKey(3), N)
+    pairs = np.asarray(jax.jit(jax.vmap(draw_pair))(keys))
+    joint = remap[pairs[:, 0]] * len(kept) + remap[pairs[:, 1]]
+    pair_probs = np.outer(probs[kept], probs[kept]).ravel()
+    stat, crit = _chi2_gof(joint, pair_probs)
+    assert stat < crit, f"chi2 {stat:.1f} >= {crit:.1f}: groups correlated"

@@ -142,3 +142,54 @@ def test_decode_batched_positions(params):
                            jnp.array([PA, PB]), kv, GEO)
     np.testing.assert_allclose(np.asarray(h[0]), ha, rtol=3e-4, atol=3e-4)
     np.testing.assert_allclose(np.asarray(h[1]), hb, rtol=3e-4, atol=3e-4)
+
+
+def _fused_int8_layers(params):
+    from qwen3_tts_tpu.ops import quant
+    layers = quant.quantize_layer_stack(params, fuse=True)
+    return layers, quant.attach_layer_list({"layers": layers})["layers_list"]
+
+
+def test_decode_step_unrolled_fused_int8_matches_scan(params):
+    """The int8 engine's decode path (per-layer weight list over the fused
+    qkv/gate+up layout) computes what the stacked scan computes on the
+    same fused int8 weights: hidden state and every cache row."""
+    layers, layers_list = _fused_int8_layers(params)
+    assert "qkv_proj" in layers_list[0] and "q_proj" not in layers_list[0]
+    rng = np.random.default_rng(12)
+    B, S = 2, 16
+    x = jnp.asarray(rng.normal(size=(B, 64), scale=0.5), jnp.float32)
+    kv = jnp.asarray(rng.normal(size=(GEO.num_layers, 2, B, S, 2, 16),
+                                scale=0.3), jnp.float32)
+    pos = jnp.array([3, 9], jnp.int32)
+    want_h, want_kv = tfm.decode_step(layers, x, pos, kv, GEO)
+    got_h, got_kv = tfm.decode_step_unrolled(layers_list, x, pos, kv, GEO)
+    np.testing.assert_allclose(np.asarray(got_h), np.asarray(want_h),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(got_kv), np.asarray(want_kv),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_decode_step_unrolled_position_isolation(params):
+    """A step writes exactly row pos[b] of slot b in every layer, leaves
+    every other cache row as it was, and each slot's hidden state equals
+    a batch-1 step on that slot alone."""
+    _, layers_list = _fused_int8_layers(params)
+    rng = np.random.default_rng(13)
+    B, S = 3, 16
+    x = jnp.asarray(rng.normal(size=(B, 64), scale=0.5), jnp.float32)
+    kv = jnp.asarray(rng.normal(size=(GEO.num_layers, 2, B, S, 2, 16),
+                                scale=0.3), jnp.float32)
+    pos = np.array([0, 7, 15], np.int32)
+    h, new_kv = tfm.decode_step_unrolled(layers_list, x, jnp.asarray(pos),
+                                         kv, GEO)
+    changed = np.any(np.asarray(new_kv) != np.asarray(kv), axis=(0, 1, 4, 5))
+    want = np.zeros((B, S), bool)
+    want[np.arange(B), pos] = True
+    np.testing.assert_array_equal(changed, want)
+    for b in range(B):
+        h1, _ = tfm.decode_step_unrolled(layers_list, x[b:b + 1],
+                                         jnp.asarray(pos[b:b + 1]),
+                                         kv[:, :, b:b + 1], GEO)
+        np.testing.assert_allclose(np.asarray(h[b]), np.asarray(h1[0]),
+                                   rtol=1e-5, atol=1e-5)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Convert / inspect Qwen3-TTS checkpoints for the TPU framework.
+"""Convert / inspect Qwen3-TTS checkpoints for this framework.
 
 Replaces the reference's model-prep toolchain (extract_embeddings.py,
 export_code_predictor_weights.py, convert_talker_gguf.py — SURVEY §2
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
                         "a bf16 talker). TTSEngine auto-detects either; "
                         "the vocoder always stays FP32")
     p.add_argument("--platform", default="cpu",
-                   choices=["default", "cpu", "tpu"])
+                   choices=["default", "cpu", "cuda"])
     args = p.parse_args(argv)
 
     if args.platform != "default":

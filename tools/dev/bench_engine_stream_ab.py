@@ -24,9 +24,10 @@ def main() -> int:
     import jax.numpy as jnp
 
     from qwen3_tts_tpu.config import TTSConfig
-    from qwen3_tts_tpu.engine.engine import TTSEngine, _enable_compile_cache
+    from qwen3_tts_tpu.engine.engine import TTSEngine
+    from qwen3_tts_tpu.utils.compile_cache import enable_compile_cache
 
-    _enable_compile_cache()
+    enable_compile_cache()
     print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
     engine = TTSEngine(TTSConfig(), model_dir=None, dtype=jnp.bfloat16,
                        quantize="int8")
@@ -48,9 +49,7 @@ def main() -> int:
     max_lsb = np.max(np.abs(wa.astype(np.int32) - ia.astype(np.int32))) \
         if len(wa) else 0
     print(f"audio parity: {mismatch:.6%} samples differ, max {max_lsb} LSB "
-          "(contract: never > 1 LSB; the differing FRACTION is <0.01% on "
-          "CPU f32 but ~3.6% on TPU, whose default f32 matmul precision "
-          "is bf16 — measured 2026-08; sub-quantization noise either way)",
+          "(contract: never > 1 LSB; sub-quantization noise)",
           file=sys.stderr, flush=True)
     assert max_lsb <= 1
 

@@ -31,7 +31,7 @@ def main(argv=None) -> int:
     p.add_argument("--max_tokens", type=int, default=256)
     p.add_argument("--model_dir", default=None)
     p.add_argument("--platform", default="default",
-                   choices=["default", "cpu", "tpu"])
+                   choices=["default", "cpu", "cuda"])
     p.add_argument("--tiny", action="store_true")
     args = p.parse_args(argv)
 

@@ -37,7 +37,7 @@ def main(argv=None) -> int:
     p.add_argument("--model_dir", default=None)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--platform", default="default",
-                   choices=["default", "cpu", "tpu"])
+                   choices=["default", "cpu", "cuda"])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--output", default="output.wav")

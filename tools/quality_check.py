@@ -35,7 +35,7 @@ compare:
   README.md:56-64), so audio differences are entirely upstream codes.
 
 Outputs one JSON line on stdout; a human table on stderr. Runs on CPU
-(``--tiny``) or the real geometry on TPU. Random weights unless
+(``--tiny``) or the real geometry on the GPU. Random weights unless
 ``--model_dir`` points at a checkpoint.
 """
 
@@ -55,7 +55,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_TEXTS = (
     "Привет, мир! Это проверка качества квантования.",
     "The quick brown fox jumps over the lazy dog.",
-    "Синтез речи на TPU работает быстро и точно.",
+    "Синтез речи на GPU работает быстро и точно.",
 )
 
 
@@ -85,15 +85,13 @@ def hidden_trajectory(engine, text: str, seed: int, n_steps: int):
     (hiddens (n_steps, H) float32, codes (n_steps, 16), n_codes).
 
     Uses the same _loop_body as the product decode (gen.run_steps), so
-    the captured numerics are the shipped path's — including the Pallas
-    CP kernel when the variant routes through it."""
+    the captured numerics are the shipped path's."""
     import jax
     import jax.numpy as jnp
 
     from qwen3_tts_tpu.config import TTS_PAD_TOKEN_ID
     from qwen3_tts_tpu.engine import generate as gen
     from qwen3_tts_tpu.models import talker as tk
-    from qwen3_tts_tpu.models import transformer as tfm
     from qwen3_tts_tpu.ops import sampling as smp
 
     cfg = engine.cfg
@@ -104,13 +102,9 @@ def hidden_trajectory(engine, text: str, seed: int, n_steps: int):
     def run(tp, cpp, ids, n, key):
         state = engine._mk_state(tp, ids, n, key)
         tts_pad = tk.embed_text(tp, jnp.array([TTS_PAD_TOKEN_ID]))[0]
-        geo = tfm.geometry_of(cfg.talker)
-        rope = tfm.rope_cos_sin(
-            jnp.arange(state.kv.shape[3], dtype=jnp.int32),
-            geo.head_dim, geo.rope_theta)
 
         def body(s, _):
-            s2 = gen._loop_body(s, tp, cpp, tts_pad, cfg, rope_table=rope)
+            s2 = gen._loop_body(s, tp, cpp, tts_pad, cfg)
             return s2, s.hidden[0].astype(jnp.float32)
 
         final, hs = jax.lax.scan(body, state, None, length=n_steps)
@@ -142,7 +136,6 @@ def teacher_forced_trajectory(engine, text: str, seed: int,
 
     from qwen3_tts_tpu.config import TTS_PAD_TOKEN_ID
     from qwen3_tts_tpu.models import talker as tk
-    from qwen3_tts_tpu.models import transformer as tfm
     from qwen3_tts_tpu.models import code_predictor as cp
     from qwen3_tts_tpu.ops import sampling as smp
 
@@ -155,10 +148,6 @@ def teacher_forced_trajectory(engine, text: str, seed: int,
     def run(tp, cpp, ids, n, key, forced):          # forced (T, 16) i32
         state = engine._mk_state(tp, ids, n, key)
         tts_pad = tk.embed_text(tp, jnp.array([TTS_PAD_TOKEN_ID]))[0]
-        geo = tfm.geometry_of(cfg.talker)
-        rope = tfm.rope_cos_sin(
-            jnp.arange(state.kv.shape[3], dtype=jnp.int32),
-            geo.head_dim, geo.rope_theta)
 
         def body(s, ref_row):                        # ref_row (16,) i32
             ks = jax.vmap(lambda k: jax.random.split(k, 3))(s.key)
@@ -178,8 +167,7 @@ def teacher_forced_trajectory(engine, text: str, seed: int,
                   + jnp.sum(cpp["codec_embs"][jnp.arange(15)[None, :],
                                               ref_groups], axis=1)
                   + tts_pad[None, :]).astype(s.hidden.dtype)
-            hidden, kv = tk.decode_step(tp, fb, s.pos, s.kv, cfg.talker,
-                                        rope_table=rope)
+            hidden, kv = tk.decode_step(tp, fb, s.pos, s.kv, cfg.talker)
             chosen = jnp.concatenate([code0_var[:, None], groups_var],
                                      axis=1)                  # (1, 16)
             s2 = s._replace(
